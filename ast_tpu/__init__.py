@@ -1,16 +1,16 @@
-"""ast_tpu — a TPU-native (JAX/XLA/Pallas/pjit) speech-to-text framework.
+"""ast_tpu — a JAX/XLA speech-to-text framework.
 
 A from-scratch rebuild of the capabilities of the 0xSameer/ast research
 harness (pyramidal CNN -> BiLSTM encoder, Luong-attention LSTM decoder,
-Fisher es->en speech translation + GlobalPhone ASR pretraining), designed
-TPU-first:
+Fisher es->en speech translation + GlobalPhone ASR pretraining), built
+for an accelerator through plain XLA:
 
 - functional core: pytree params, pure ``loss_fn(params, state, batch, rng)``
 - ``jax.lax.scan`` recurrences instead of per-timestep Python loops
 - static bucketed shapes so XLA compiles a bounded set of programs
 - batched on-device greedy + beam decoding (``lax.while_loop`` / ``lax.top_k``)
-- data-parallel training over a ``jax.sharding.Mesh`` with ICI all-reduce
-- on-device MFCC/fbank + CMVN feature extraction (matmul-DFT on the MXU)
+- data-parallel training over a ``jax.sharding.Mesh`` (XLA all-reduce)
+- on-device MFCC/fbank + CMVN feature extraction (matmul DFT)
 
 External contracts (experiment dir layout, config JSON schema, SYMBOLS ids,
 log formats, checkpoint-per-epoch resume, refs/BLEU protocol) match the

@@ -11,7 +11,7 @@ plus ``manifest.json`` and a ``vocab.json`` id->token table so a server
 can detokenize without pickles or framework code.
 
 The reference has no deployment path at all (decode = the research CLI,
-reference: beam.py:45-147); this is a new TPU-native capability.
+reference: beam.py:45-147); this is a new capability.
 """
 
 import argparse
@@ -43,14 +43,10 @@ def main(argv=None):
                         help="additionally export beam decode at N,K")
     parser.add_argument("--stop-limit", type=int, default=None,
                         help="max decode steps (default data.max_pred)")
-    parser.add_argument("--platforms", default="cpu,tpu")
-    parser.add_argument("--native-kernels", action="store_true",
-                        help="bake the fused Mosaic decode kernels into "
-                             "the artifact (TPU-only; forces "
-                             "--platforms tpu).  Decodes at the "
-                             "in-process fused-kernel rate instead of "
-                             "the portable XLA loop; tpu_custom_call is "
-                             "on jax.export's guaranteed-stable list")
+    parser.add_argument("--platforms",
+                        default=",".join(serving.DEFAULT_PLATFORMS),
+                        help="comma-separated jax.export lowering "
+                             "platforms (default: %(default)s)")
     parser.add_argument("--dtype", default=None,
                         choices=["float32", "bfloat16"],
                         help="compute dtype inside the artifact "
@@ -74,13 +70,6 @@ def main(argv=None):
     data_cfg = nn.cfg.train["data"]
     stop_limit = args.stop_limit or int(data_cfg["max_pred"])
     platforms = [p.strip() for p in args.platforms.split(",") if p.strip()]
-    if args.native_kernels:
-        # validate the PARSED list so spellings like "tpu,cpu" or
-        # " tpu" are judged by meaning, not by exact string
-        if not set(platforms) <= {"cpu", "tpu"} or "tpu" not in platforms:
-            parser.error("--native-kernels artifacts are TPU-only; "
-                         "drop --platforms or pass --platforms tpu")
-        platforms = ["tpu"]
     dtype = (jnp.bfloat16 if args.dtype == "bfloat16"
              else jnp.float32 if args.dtype == "float32"
              else nn.compute_dtype)
@@ -109,8 +98,7 @@ def main(argv=None):
             parser.error(f"--beam expects N,K (got {args.beam!r})")
 
     quant = bool(args.quantize)
-    tag = ("_q8" if quant else "") + \
-        ("_tpu" if args.native_kernels else "")
+    tag = "_q8" if quant else ""
     # quantize once; the export fns detect the pre-quantized tree
     params = (serving.quantize_params(nn.params, args.quantize_min_size)
               if quant else nn.params)
@@ -119,15 +107,12 @@ def main(argv=None):
         exp = serving.export_greedy(
             params, nn.state, nn.mcfg, args.batch, T, stop_limit,
             dtype, platforms, quantize=quant,
-            q_min_size=args.quantize_min_size,
-            native=args.native_kernels)
+            q_min_size=args.quantize_min_size)
         fname = f"greedy_B{args.batch}_T{T}{tag}.jaxexp"
         nbytes = serving.save_artifact(exp, os.path.join(out_dir, fname))
         entries.append({"file": fname, "kind": "greedy",
                         "batch": args.batch, "frames": T,
-                        "platforms": platforms, "bytes": nbytes,
-                        **({"native": True} if args.native_kernels
-                           else {})})
+                        "platforms": platforms, "bytes": nbytes})
         print(f"exported {fname} ({nbytes} bytes, "
               f"platforms={','.join(platforms)})")
         if beam_nk:
@@ -135,16 +120,13 @@ def main(argv=None):
             exp = serving.export_beam(
                 params, nn.state, nn.mcfg, args.batch, T, N, K,
                 stop_limit, dtype, platforms, quantize=quant,
-                q_min_size=args.quantize_min_size,
-                native=args.native_kernels)
+                q_min_size=args.quantize_min_size)
             fname = f"beam_N{N}_K{K}_B{args.batch}_T{T}{tag}.jaxexp"
             nbytes = serving.save_artifact(
                 exp, os.path.join(out_dir, fname))
             entries.append({"file": fname, "kind": "beam", "N": N, "K": K,
                             "batch": args.batch, "frames": T,
-                            "platforms": platforms, "bytes": nbytes,
-                            **({"native": True} if args.native_kernels
-                               else {})})
+                            "platforms": platforms, "bytes": nbytes})
             print(f"exported {fname} ({nbytes} bytes)")
 
     dec_key = data_cfg["dec_key"]

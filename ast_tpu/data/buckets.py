@@ -10,7 +10,7 @@ prep_buckets.py:41-108):
   dedicated seed)
 - the resulting dict is persisted as ``buckets_<key>.dict`` in the model dir
 
-On TPU this bucketing is the *length policy*: bucket ``b`` trains with input
+On the device this bucketing is the *length policy*: bucket ``b`` trains with input
 length ``(b+1)*width_b``, giving at most ``num_b`` encoder shapes.
 """
 

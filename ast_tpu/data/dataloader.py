@@ -169,10 +169,10 @@ class DataLoader:
     def tail_rows(n, b_size, min_rows):
         """Smallest repeated-half of ``b_size`` that holds ``n`` real
         rows: tail batches pad to this instead of the full ``b_size``.
-        Halves stay multiples of ``min_rows`` (8 x the mesh data shards,
-        so each device's LOCAL rows keep the 8-row fused-kernel
-        alignment) — every statically compiled tail shape remains
-        fused-eligible and shardable."""
+        Halves stay multiples of ``min_rows`` (8 x the mesh data shards:
+        every tail shape shards evenly, and the set of statically
+        compiled tail shapes stays small).  No kernel needs the 8-row
+        alignment any more; it is kept so batch shapes do not change."""
         B = b_size
         while B // 2 >= max(n, min_rows) and (B // 2) % min_rows == 0:
             B //= 2

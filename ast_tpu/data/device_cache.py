@@ -2,9 +2,8 @@
 
 The reference re-ships every batch's feature block host->GPU every epoch
 (reference: dataloader.py:111-164 assembles on host, nn.py:168 uploads
-per batch).  On transfer-bound hosts that feed is the trainer
-bottleneck (BASELINE.md round 4: 100% of the 3.3x gap between the
-shipped trainer and its device-staged ceiling).  A 20h Fisher feature
+per batch).  On transfer-bound hosts that feed can bound the trainer.
+A 20h Fisher feature
 set is ~375 MB f32 — it fits in HBM with room to spare, so this module
 uploads each bucket's padded feature matrix ONCE and the jitted train
 step assembles batches by a device-side gather over the epoch's

@@ -3,10 +3,10 @@ jitted step (MFCC + per-speaker CMVN fused with the model forward).
 
 This replaces the reference's *offline* Kaldi feature chain
 (compute-mfcc-feats -> apply-cmvn -> text ark -> .npy files, SURVEY §2.4)
-with the TPU-native pipeline the north star describes: the loader ships
-padded raw audio + per-utterance CMVN statistics; `ast_tpu.ops.fbank`
-turns them into normalized 13-dim MFCC on the chip as a chain of MXU
-matmuls, fused by XLA into the encoder's first convolution.
+with an on-device pipeline: the loader ships padded raw audio +
+per-utterance CMVN statistics; `ast_tpu.ops.fbank` turns them into
+normalized 13-dim MFCC on the device as a chain of matmuls, fused by XLA
+into the encoder's first convolution.
 
 Select with ``data.features: "wav"``.  Layout:
   <speech_path>/<set_key>/<utt>.npy   float32 1-D raw audio (8 kHz), or

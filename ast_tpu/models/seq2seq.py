@@ -5,7 +5,7 @@ Capability-parity rebuild of the reference model (reference: seq2seq.py:22-568
 front-end -> stacked bidirectional LSTM encoder -> attention LSTM decoder
 with input feeding, scheduled sampling, and PAD-masked cross entropy.
 
-TPU-first design decisions (vs. the reference's per-timestep Python loops):
+Design decisions (vs. the reference's per-timestep Python loops):
 
 - The *entire* encoder is ONE ``lax.scan`` over time.  The reference runs
   the forward and reverse 3-layer LSTM stacks independently and only
@@ -14,7 +14,7 @@ TPU-first design decisions (vs. the reference's per-timestep Python loops):
   we stack them on a leading direction axis and batch the per-layer matmuls
   with einsum, so one scan step advances all 6 LSTMs.
 - Layer-0 input projections (x @ wx for both directions) are hoisted out of
-  the scan as one big time-batched matmul on the MXU.
+  the scan as one big time-batched matmul.
 - The decoder's teacher-forcing loop is a ``lax.scan`` over target steps;
   greedy decode is a ``lax.while_loop`` with EOS early exit.
 - Static shapes everywhere: (T, U) is fixed per duration bucket.
@@ -41,8 +41,6 @@ Documented deviations:
   randint upper bound V+1 could produce an out-of-range id,
   seq2seq.py:464-465)
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -191,19 +189,12 @@ def _dir_lstm_matmul(p, x, wname):
 
 
 def encode(params, state, mcfg, X, key, train, add_noise=0.0,
-           compute_dtype=jnp.float32, mesh=None):
+           compute_dtype=jnp.float32):
     """Run CNN + stacked (bi)LSTM encoder.
 
     X: (B, T, D) padded speech features.
     Returns (enc_states (B, T', H), dec_h0 (L, B, H), dec_c0 (L, B, H),
     new_state).
-
-    ``mesh``: when set (multi-device SPMD), the fused Pallas recurrence
-    runs under ``shard_map`` over the mesh's 'data' axis — each device
-    executes the kernel on its local batch rows only (GSPMD cannot
-    partition an opaque Mosaic custom call; everything outside the
-    kernel stays auto-sharded).  Dropout masks hash global row indices,
-    so the sharded run is bit-identical to the single-device kernel.
     """
     rnn = mcfg["rnn_config"]
     drop = mcfg["dropout"]["rnn"]
@@ -250,113 +241,52 @@ def encode(params, state, mcfg, X, key, train, add_noise=0.0,
     if n_dirs == 1:
         layers = [jax.tree.map(lambda a: a[None], l) for l in layers]
 
-    # hoist layer-0 input projection out of the scan: one big MXU matmul
+    # hoist layer-0 input projection out of the scan: one time-batched matmul
     x0_proj = jnp.einsum(
         "tdbi,dih->tdbh", xs.astype(compute_dtype),
         layers[0]["wx"].astype(compute_dtype),
         preferred_element_type=jnp.float32,
     )
 
-    # Pallas fused-recurrence path: the whole stacked biLSTM runs as one
-    # Mosaic kernel (see ast_tpu.ops.fused_lstm); fall back to lax.scan
-    # when disabled or when the variant doesn't apply (LayerNorm).
     use_ln = rnn.get("ln", False)
     use_relu = rnn.get("rnn_relu", False)
-    from ast_tpu.ops.fused_lstm import fused_chunk_size
-    interp = bool(rnn.get("fused_interpret", False))
-    # data-parallel sharding of the kernel: each device runs its local
-    # batch rows, so the VMEM chunk policy sees the LOCAL batch
-    n_shards = _n_data_shards(mesh, B)
-    B_loc = B // n_shards
-    chunk = fused_chunk_size(
-        n_layers, n_dirs, B_loc, enc_units,
-        2 if compute_dtype != jnp.float32 else 4)
-    if chunk <= 0 and interp:
-        chunk = B_loc  # interpret-mode tests bypass the alignment gate
-    use_fused = (rnn.get("fused_encoder", False) and not use_ln
-                 and not use_relu and chunk > 0)
-    if use_fused:
-        from ast_tpu.ops.fused_lstm import (
-            fused_stacked_lstm, pack_encoder_weights)
-        wx_rest, wh_s, b_s = pack_encoder_weights(layers)
-        if compute_dtype != jnp.float32:
-            # bf16 weights in VMEM (f32 accumulate); halves kernel VMEM
-            wx_rest = wx_rest.astype(compute_dtype)
-            wh_s = wh_s.astype(compute_dtype)
-        seed = jax.random.randint(key, (), 0, 2**31 - 1, jnp.int32)
-        drop_r = float(drop) if train else 0.0
+    step_keys = jax.random.split(key, Tp)
+    h0 = jnp.zeros((n_layers, n_dirs, B, enc_units))
+    c0 = jnp.zeros((n_layers, n_dirs, B, enc_units))
 
-        def run_chunks(x0_l, wxr, whs, bs, sd, base_off):
-            # batches past the VMEM budget run as independent chunk
-            # calls (no cross-batch coupling in the recurrence);
-            # row offsets keep the dropout stream chunk-invariant
-            Bl = x0_l.shape[2]
-            parts = []
-            for b0 in range(0, Bl, chunk):
-                parts.append(fused_stacked_lstm(
-                    x0_l[:, :, b0:b0 + chunk], wxr, whs, bs, sd,
-                    bool(train), drop_r, interp, base_off + b0, B))
-            if len(parts) == 1:
-                return parts[0]
-            # (T,D2,B,H) / (L,D2,B,H): concat on the batch axis
-            return tuple(jnp.concatenate([p[i] for p in parts], axis=2)
-                         for i in range(3))
+    def step(carry, inp):
+        h_all, c_all = carry
+        xp0, skey = inp
+        lkeys = jax.random.split(skey, n_layers)
+        x = None
+        new_h, new_c = [], []
+        for l, lp in enumerate(layers):
+            if l == 0:
+                z = xp0
+            else:
+                z = _dir_lstm_matmul(
+                    {"wx": lp["wx"].astype(compute_dtype)},
+                    x.astype(compute_dtype), "wx")
+            z = z + _dir_lstm_matmul(lp, h_all[l], "wh") \
+                + lp["b"][:, None, :]
+            h_new, c_new = lstm_gates(z, c_all[l], enc_units)
+            x = dropout(lkeys[l], h_new, drop, train)
+            if use_ln:
+                ln = params["enc"]["ln"][l]
+                x = _layernorm(x, ln["g"][:, None, :],
+                               ln["b"][:, None, :])
+            if use_relu:
+                # legacy rnn_relu knob: ReLU on every LSTM layer's
+                # output, after dropout+LN (reference:
+                # enc_dec.py:282-283, feed_rnn order)
+                x = jnp.maximum(x, 0.0)
+            new_h.append(h_new)
+            new_c.append(c_new)
+        return (jnp.stack(new_h), jnp.stack(new_c)), x
 
-        if n_shards > 1:
-            from jax import shard_map
-            from jax.sharding import PartitionSpec as P
-
-            def local(x0_l, wxr, whs, bs, sd):
-                off = jax.lax.axis_index("data") * B_loc
-                return run_chunks(x0_l, wxr, whs, bs, sd, off)
-
-            spec_b2 = P(None, None, "data", None)
-            outs, h_fin, c_fin = shard_map(
-                local, mesh=mesh,
-                in_specs=(spec_b2, P(), P(), P(), P()),
-                out_specs=(spec_b2, spec_b2, spec_b2),
-                check_vma=False)(x0_proj, wx_rest, wh_s, b_s, seed)
-        else:
-            outs, h_fin, c_fin = run_chunks(
-                x0_proj, wx_rest, wh_s, b_s, seed, 0)
-    else:
-        step_keys = jax.random.split(key, Tp)
-        h0 = jnp.zeros((n_layers, n_dirs, B, enc_units))
-        c0 = jnp.zeros((n_layers, n_dirs, B, enc_units))
-
-        def step(carry, inp):
-            h_all, c_all = carry
-            xp0, skey = inp
-            lkeys = jax.random.split(skey, n_layers)
-            x = None
-            new_h, new_c = [], []
-            for l, lp in enumerate(layers):
-                if l == 0:
-                    z = xp0
-                else:
-                    z = _dir_lstm_matmul(
-                        {"wx": lp["wx"].astype(compute_dtype)},
-                        x.astype(compute_dtype), "wx")
-                z = z + _dir_lstm_matmul(lp, h_all[l], "wh") \
-                    + lp["b"][:, None, :]
-                h_new, c_new = lstm_gates(z, c_all[l], enc_units)
-                x = dropout(lkeys[l], h_new, drop, train)
-                if use_ln:
-                    ln = params["enc"]["ln"][l]
-                    x = _layernorm(x, ln["g"][:, None, :],
-                                   ln["b"][:, None, :])
-                if use_relu:
-                    # legacy rnn_relu knob: ReLU on every LSTM layer's
-                    # output, after dropout+LN (reference:
-                    # enc_dec.py:282-283, feed_rnn order)
-                    x = jnp.maximum(x, 0.0)
-                new_h.append(h_new)
-                new_c.append(c_new)
-            return (jnp.stack(new_h), jnp.stack(new_c)), x
-
-        (h_fin, c_fin), outs = lax.scan(
-            step, (h0, c0), (x0_proj, step_keys),
-            unroll=rnn.get("scan_unroll", 1))
+    (h_fin, c_fin), outs = lax.scan(
+        step, (h0, c0), (x0_proj, step_keys),
+        unroll=rnn.get("scan_unroll", 1))
     # outs: (T', D, B, enc_units) — post-dropout top-layer outputs
     if bi:
         fwd = outs[:, 0]
@@ -521,15 +451,14 @@ def init_decoder_carry(mcfg, dec_h0, dec_c0):
 
 def forward_loss(params, state, mcfg, X, y, key, train=True, n_real=None,
                  teach_ratio=1.0, random_out=0.0, add_noise=0.0,
-                 compute_dtype=jnp.float32, enc_mask=None, mesh=None,
+                 compute_dtype=jnp.float32, enc_mask=None,
                  label_smoothing=0.0):
     """Teacher-forced (scheduled-sampling) sequence loss.
 
     ``label_smoothing`` (beyond-reference, ``extras.label_smoothing``):
     train-time uniform label smoothing over the real vocabulary —
     per-token loss becomes (1-eps)*NLL(target) + eps*mean_v(-log p_v),
-    a static mix of the same log-softmax (no extra matmul, identical
-    fused-kernel path).  0.0 (the default and the reference's behavior)
+    a static mix of the same log-softmax (no extra matmul).  0.0 (the default and the reference's behavior)
     is the exact teacher-forced CE; eval passes never smooth.
 
     X: (B, T, D) speech; y: (B, U) int32 targets incl. GO/EOS, PAD-padded.
@@ -546,16 +475,7 @@ def forward_loss(params, state, mcfg, X, y, key, train=True, n_real=None,
 
     key, ekey = jax.random.split(key)
     enc_states, dec_h0, dec_c0, new_state = encode(
-        params, state, mcfg, X, ekey, train, add_noise, compute_dtype,
-        mesh)
-
-    if _use_fused_decoder(mcfg, params, enc_states, y, compute_dtype,
-                          enc_mask, mesh):
-        loss = _fused_decoder_loss(
-            params, mcfg, enc_states, dec_h0, dec_c0, y, key, train,
-            n_real, teach_ratio, random_out, compute_dtype, mesh,
-            label_smoothing)
-        return loss, new_state
+        params, state, mcfg, X, ekey, train, add_noise, compute_dtype)
 
     carry0 = init_decoder_carry(mcfg, dec_h0, dec_c0)
     yT = y.T  # (U, B)
@@ -608,194 +528,8 @@ def forward_loss(params, state, mcfg, X, y, key, train=True, n_real=None,
     return jnp.sum(step_losses), new_state
 
 
-def pack_decoder_weights(params, wdt, Vp):
-    """Decoder/attention params -> the fused-kernel weight dict (vocab
-    axis padded to Vp; padded out_b rows at -1e9 so argmax never selects
-    them).  Shared by the training kernel (_fused_decoder_loss) and the
-    inference kernels (ops/fused_infer)."""
-    dec = params["dec"]
-    attn = params["attn"]
-    V = dec["out_w"].shape[1]
-    padV = Vp - V
-    return {
-        "wx0": dec["lstm"][0]["wx"].astype(wdt),
-        "wx_rest": jnp.stack(
-            [l["wx"] for l in dec["lstm"][1:]]).astype(wdt)
-        if len(dec["lstm"]) > 1 else
-        jnp.zeros((0,) + dec["lstm"][0]["wh"].shape, wdt),
-        "wh": jnp.stack([l["wh"] for l in dec["lstm"]]).astype(wdt),
-        "b": jnp.stack([l["b"] for l in dec["lstm"]]).astype(wdt),
-        "wa": attn["wa"][0]["w"].astype(wdt),
-        "wa_b": attn["wa"][0]["b"].astype(wdt),
-        "ctx_w": attn["context"]["w"].astype(wdt),
-        "ctx_b": attn["context"]["b"].astype(wdt),
-        "out_w": jnp.pad(dec["out_w"], ((0, 0), (0, padV))).astype(wdt),
-        "out_b": jnp.pad(dec["out_b"], (0, padV),
-                         constant_values=-1e9).astype(wdt),
-        "embed": jnp.pad(dec["embed"], ((0, padV), (0, 0))).astype(wdt),
-    }
-
-
-def _n_data_shards(mesh, B):
-    """Data-axis shard count when the kernel region runs under
-    shard_map (0 < shards evenly dividing B), else 1."""
-    if mesh is not None and mesh.shape.get("data", 1) > 1 \
-            and B % mesh.shape["data"] == 0:
-        return mesh.shape["data"]
-    return 1
-
-
-def _use_fused_decoder(mcfg, params, enc_states, y, compute_dtype,
-                       enc_mask, mesh=None):
-    """Eligibility for the Pallas fused decoder training kernel."""
-    rnn = mcfg["rnn_config"]
-    if not rnn.get("fused_decoder", False) or enc_mask is not None:
-        return False
-    if (rnn.get("n_attn", 1) != 1 or not rnn.get("feed_attn", True)
-            or rnn.get("ln", False) or rnn.get("rnn_relu", False)
-            or mcfg["dropout"].get("out", 0) > 0
-            or rnn.get("attn_block_size", 0)):
-        return False
-    if rnn.get("fused_interpret", False):
-        return True  # interpret-mode tests bypass the alignment gate
-    from ast_tpu.ops.fused_decoder import fused_decoder_chunk, round_up
-    B, T, H = enc_states.shape
-    B_loc = B // _n_data_shards(mesh, B)
-    L = rnn["dec_layers"]
-    E = rnn["embedding_units"]
-    A = rnn["attn_units"]
-    Vp = round_up(rnn["dec_vocab_size"], 128)
-    wb = 2 if compute_dtype != jnp.float32 else 4
-    return fused_decoder_chunk(L, B_loc, H, E, A, T, Vp, wb) > 0
-
-
-def _fused_decoder_loss(params, mcfg, enc_states, dec_h0, dec_c0, y, key,
-                        train, n_real, teach_ratio, random_out,
-                        compute_dtype, mesh=None, label_smoothing=0.0):
-    """Decoder loss via the fused Pallas kernel (see ops/fused_decoder):
-    the kernel streams attentional hidden states; loss logits are one
-    large matmul here.  Under a mesh the kernel runs per-device via
-    shard_map (batch rows on 'data'); global-row dropout hashing keeps
-    it bit-identical to the single-device kernel."""
-    from ast_tpu.ops.fused_decoder import fused_decoder_apply, round_up
-
-    rnn = mcfg["rnn_config"]
-    B, U = y.shape
-    V = rnn["dec_vocab_size"]
-    Vp = round_up(V, 128)
-    steps = U - 1
-    wdt = compute_dtype
-
-    k_coin, k_seed, k_rand1, k_rand2 = jax.random.split(key, 4)
-
-    # scheduled-sampling coins: one per step, first/last forced
-    # (reference: seq2seq.py:423-436)
-    if train and teach_ratio < 1.0:
-        idx = jnp.arange(steps)
-        coins = ((idx == 0) | (idx >= steps - 1)
-                 | jax.random.bernoulli(k_coin, teach_ratio, (steps,)))
-    else:
-        coins = jnp.ones((steps,), bool)
-    coins = coins.astype(jnp.int32)
-
-    yT = y.T
-    y_in = yT[:steps]
-    y_oh = jax.nn.one_hot(y_in, Vp, dtype=wdt)
-
-    dec = params["dec"]
-    w = pack_decoder_weights(params, wdt, Vp)
-    seed = jax.random.randint(k_seed, (), 0, 2**31 - 1, jnp.int32)
-
-    from ast_tpu.ops.fused_decoder import fused_decoder_chunk
-    wb = 2 if wdt != jnp.float32 else 4
-    n_shards = _n_data_shards(mesh, B)
-    B_loc = B // n_shards
-    chunk = fused_decoder_chunk(
-        len(dec["lstm"]), B_loc, rnn["hidden_units"],
-        rnn["embedding_units"], rnn["attn_units"],
-        enc_states.shape[1], Vp, wb)
-    # fused_decoder_chunk only ever returns 0 or a divisor of B_loc
-    # (aligned_divisors); a non-divisor would silently run the whole
-    # local batch in one kernel call past the VMEM budget
-    assert chunk == 0 or B_loc % chunk == 0, (chunk, B_loc)
-    if chunk <= 0:
-        chunk = B_loc  # interpret-mode tests bypass the alignment gate
-
-    drop_e = float(mcfg["dropout"]["embed"]) if train else 0.0
-    drop_r = float(mcfg["dropout"]["rnn"]) if train else 0.0
-    interp = bool(rnn.get("fused_interpret", False))
-    # experimental: decoder tokens per Mosaic grid step (bit-identical
-    # at any value; must divide the step count, else fall back to 1)
-    tps = int(rnn.get("fused_tokens_per_step", 1))
-    if tps < 1 or steps % tps != 0:
-        tps = 1
-
-    def run_chunks(enc_l, h0_l, c0_l, yoh_l, w_l, coins_l, seed_l,
-                   base_off):
-        # batches past the VMEM budget run as independent chunk calls
-        # (the decoder recurrence has no cross-batch coupling); row
-        # offsets keep the dropout stream chunk-invariant
-        parts = []
-        for b0 in range(0, enc_l.shape[0], chunk):
-            b1 = b0 + chunk
-            parts.append(fused_decoder_apply(
-                enc_l[b0:b1].astype(wdt), h0_l[:, b0:b1], c0_l[:, b0:b1],
-                w_l["wx0"], w_l["wx_rest"], w_l["wh"], w_l["b"],
-                w_l["wa"], w_l["wa_b"], w_l["ctx_w"], w_l["ctx_b"],
-                w_l["out_w"], w_l["out_b"], w_l["embed"],
-                yoh_l[:, b0:b1], coins_l, seed_l,
-                drop_e, drop_r, bool(train), interp, base_off + b0,
-                tps))
-        return parts[0] if len(parts) == 1 \
-            else jnp.concatenate(parts, axis=1)
-
-    if n_shards > 1:
-        from jax import shard_map
-        from jax.sharding import PartitionSpec as P
-
-        def local(enc_l, h0_l, c0_l, yoh_l, w_l, coins_l, seed_l):
-            off = jax.lax.axis_index("data") * B_loc
-            return run_chunks(enc_l, h0_l, c0_l, yoh_l, w_l, coins_l,
-                              seed_l, off)
-
-        ht_seq = shard_map(
-            local, mesh=mesh,
-            in_specs=(P("data"), P(None, "data"), P(None, "data"),
-                      P(None, "data"), P(), P(), P()),
-            out_specs=P(None, "data"),
-            check_vma=False)(enc_states, dec_h0, dec_c0, y_oh, w,
-                             coins, seed)
-    else:
-        ht_seq = run_chunks(enc_states, dec_h0, dec_c0, y_oh, w, coins,
-                            seed, 0)
-
-    # loss logits: one large (steps*B, A) @ (A, V) matmul
-    logits = jnp.einsum(
-        "uba,av->ubv", ht_seq.astype(wdt), dec["out_w"].astype(wdt),
-        preferred_element_type=jnp.float32) + dec["out_b"]
-
-    target = yT[1:]                                      # (steps, B)
-    if train and random_out > 0:
-        replace = (target >= SYMBOLS.N_SPECIAL) & (
-            jax.random.uniform(k_rand1, target.shape) > random_out)
-        rand_ids = jax.random.randint(
-            k_rand2, target.shape, SYMBOLS.N_SPECIAL, V).astype(jnp.int32)
-        target = jnp.where(replace, rand_ids, target)
-
-    logp = jax.nn.log_softmax(logits, axis=-1)
-    nll = -jnp.take_along_axis(logp, target[..., None], axis=-1)[..., 0]
-    if train and label_smoothing > 0:
-        # these logits come from the UNPADDED out_w/out_b (V columns) —
-        # only the Pallas kernels see Vp-packed weights — so the mean
-        # already runs over the real vocab
-        eps = label_smoothing
-        nll = (1.0 - eps) * nll + eps * -jnp.mean(logp, axis=-1)
-    pad_w = (target != SYMBOLS.PAD_ID).astype(jnp.float32)
-    return jnp.sum(nll * pad_w) / jnp.asarray(n_real, jnp.float32)
-
-
 def predict_greedy(params, state, mcfg, X, stop_limit,
-                   compute_dtype=jnp.float32, enc_mask=None, mesh=None):
+                   compute_dtype=jnp.float32, enc_mask=None):
     """Batched greedy decode with EOS early exit.
 
     Returns (preds (B, stop_limit) int32, n_steps).  Positions past a
@@ -806,20 +540,7 @@ def predict_greedy(params, state, mcfg, X, stop_limit,
     B = X.shape[0]
     key = jax.random.PRNGKey(0)  # eval mode: no randomness consumed
     enc_states, dec_h0, dec_c0, _ = encode(
-        params, state, mcfg, X, key, False, 0.0, compute_dtype, mesh)
-
-    chunk = _fused_infer_chunk(mcfg, enc_states, compute_dtype,
-                               enc_mask, mesh)
-    if chunk > 0:
-        preds = _fused_greedy(params, mcfg, enc_states, dec_h0, dec_c0,
-                              stop_limit, compute_dtype, chunk, mesh)
-        # reconstruct the while-loop path's n_steps (steps until every
-        # row has produced its first EOS, capped at stop_limit) so both
-        # paths keep the same return contract
-        is_eos = preds == SYMBOLS.EOS_ID
-        per_row = jnp.where(jnp.any(is_eos, axis=1),
-                            jnp.argmax(is_eos, axis=1) + 1, stop_limit)
-        return preds, jnp.max(per_row).astype(jnp.int32)
+        params, state, mcfg, X, key, False, 0.0, compute_dtype)
 
     carry0 = init_decoder_carry(mcfg, dec_h0, dec_c0)
 
@@ -844,63 +565,6 @@ def predict_greedy(params, state, mcfg, X, stop_limit,
     n_steps, _, _, _, out = lax.while_loop(
         cond, body, (jnp.int32(0), word0, carry0, finished0, out0))
     return out, n_steps
-
-
-def _fused_infer_chunk(mcfg, enc_states, compute_dtype, enc_mask, mesh):
-    """Batch chunk size for the fused inference kernels (0 = fall back
-    to the lax.while_loop path).  Same variant gates as the training
-    kernel (_use_fused_decoder)."""
-    rnn = mcfg["rnn_config"]
-    from ast_tpu.ops.fused_infer import fused_infer_chunk, infer_variant_ok
-    from ast_tpu.ops.fused_decoder import round_up
-    if not infer_variant_ok(mcfg, enc_mask):
-        return 0
-    B, T, H = enc_states.shape
-    B_loc = B // _n_data_shards(mesh, B)
-    if rnn.get("fused_interpret", False):
-        return B_loc  # interpret-mode tests bypass the alignment gate
-    L = rnn["dec_layers"]
-    E = rnn["embedding_units"]
-    A = rnn["attn_units"]
-    Vp = round_up(rnn["dec_vocab_size"], 128)
-    wb = 2 if compute_dtype != jnp.float32 else 4
-    return fused_infer_chunk(L, B_loc, H, E, A, T, Vp, wb)
-
-
-def _fused_greedy(params, mcfg, enc_states, dec_h0, dec_c0, stop_limit,
-                  compute_dtype, chunk, mesh):
-    """Greedy decode via the fused inference kernel (ops/fused_infer)."""
-    from ast_tpu.ops.fused_decoder import round_up
-    from ast_tpu.ops.fused_infer import greedy_decode_fused
-
-    rnn = mcfg["rnn_config"]
-    B = enc_states.shape[0]
-    wdt = compute_dtype
-    Vp = round_up(rnn["dec_vocab_size"], 128)
-    w = pack_decoder_weights(params, wdt, Vp)
-    interp = bool(rnn.get("fused_interpret", False))
-    n_shards = _n_data_shards(mesh, B)
-    B_loc = B // n_shards
-
-    def run_chunks(enc_l, h0_l, c0_l, w_l):
-        parts = []
-        for b0 in range(0, enc_l.shape[0], chunk):
-            b1 = b0 + chunk
-            parts.append(greedy_decode_fused(
-                enc_l[b0:b1].astype(wdt), h0_l[:, b0:b1],
-                c0_l[:, b0:b1], w_l, stop_limit, interp))
-        return parts[0] if len(parts) == 1 \
-            else jnp.concatenate(parts, axis=0)
-
-    if n_shards > 1:
-        from jax import shard_map
-        from jax.sharding import PartitionSpec as P
-        return shard_map(
-            run_chunks, mesh=mesh,
-            in_specs=(P("data"), P(None, "data"), P(None, "data"), P()),
-            out_specs=P("data"),
-            check_vma=False)(enc_states, dec_h0, dec_c0, w)
-    return run_chunks(enc_states, dec_h0, dec_c0, w)
 
 
 # ---------------------------------------------------------------------------

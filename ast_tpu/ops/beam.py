@@ -17,8 +17,6 @@ Semantics preserved from the reference:
 - decode stops when all kept hyps end in EOS or at ``stop_limit``
 """
 
-import functools
-
 import jax
 import jax.numpy as jnp
 from jax import lax
@@ -60,71 +58,11 @@ def make_beam_decoder(mcfg, N, K, stop_limit, compute_dtype=jnp.float32,
         raise ValueError(f"beam sizes must be >= 1 (got N={N}, K={K})")
     max_len = stop_limit + 1
 
-    def fused_chunk(B, T, H):
-        """Utterance-chunk size for the fused beam kernel (0 = XLA
-        frontier loop).  Attention history stays on the XLA path."""
-        rnn = mcfg["rnn_config"]
-        from ast_tpu.ops.fused_decoder import round_up
-        from ast_tpu.ops.fused_infer import (
-            fused_beam_chunk, infer_variant_ok)
-        # variant gates shared with the greedy dispatcher
-        # (seq2seq._fused_infer_chunk); attention history stays XLA-side
-        if return_attn or not infer_variant_ok(mcfg):
-            return 0
-        if rnn.get("fused_interpret", False):
-            return B
-        Vp = round_up(rnn["dec_vocab_size"], 128)
-        wb = 2 if compute_dtype != jnp.float32 else 4
-        return fused_beam_chunk(
-            rnn["dec_layers"], B, N, H, rnn["embedding_units"],
-            rnn["attn_units"], T, Vp, wb)
-
-    def fused_decode(params, enc_states, dec_h0, dec_c0, chunk):
-        from ast_tpu.ops.fused_decoder import round_up
-        from ast_tpu.ops.fused_infer import beam_decode_fused
-        rnn = mcfg["rnn_config"]
-        Vp = round_up(rnn["dec_vocab_size"], 128)
-        w = seq2seq.pack_decoder_weights(params, compute_dtype, Vp)
-        interp = bool(rnn.get("fused_interpret", False))
-        parts = []
-        for b0 in range(0, enc_states.shape[0], chunk):
-            b1 = b0 + chunk
-            parts.append(beam_decode_fused(
-                enc_states[b0:b1].astype(compute_dtype),
-                dec_h0[:, b0:b1], dec_c0[:, b0:b1], w, N, K,
-                stop_limit, interp))
-        if len(parts) == 1:
-            return parts[0]
-        return tuple(jnp.concatenate([p[i] for p in parts], axis=0)
-                     for i in range(3))
-
     def decode(params, state, X):
         B = X.shape[0]
         key = jax.random.PRNGKey(0)
         enc_states, dec_h0, dec_c0, _ = seq2seq.encode(
-            params, state, mcfg, X, key, False, 0.0, compute_dtype,
-            mesh)
-
-        n_shards = seq2seq._n_data_shards(mesh, B)
-        B_loc = B // n_shards
-        chunk = fused_chunk(B_loc, enc_states.shape[1],
-                            enc_states.shape[2])
-        if chunk > 0 and n_shards > 1:
-            from jax import shard_map
-            from jax.sharding import PartitionSpec as P
-
-            def local(enc_l, h0_l, c0_l, p):
-                return fused_decode(p, enc_l, h0_l, c0_l, chunk)
-
-            return shard_map(
-                local, mesh=mesh,
-                in_specs=(P("data"), P(None, "data"), P(None, "data"),
-                          P()),
-                out_specs=(P("data"), P("data"), P("data")),
-                check_vma=False)(enc_states, dec_h0, dec_c0, params)
-        if chunk > 0:
-            return fused_decode(params, enc_states, dec_h0, dec_c0,
-                                chunk)
+            params, state, mcfg, X, key, False, 0.0, compute_dtype)
 
         carry = seq2seq.init_decoder_carry(mcfg, dec_h0, dec_c0)
 

@@ -1,6 +1,6 @@
 """Kaldi nnet2 bottleneck-feature (BNF) forward pass in JAX.
 
-TPU-native equivalent of the reference's zero-resource feature variant
+On-device equivalent of the reference's zero-resource feature variant
 (reference: fisher/kaldi/create_bnfs.sh:46-53 runs
 ``steps/nnet2/dump_bottleneck_features.sh`` -> ``nnet-compute final.raw``
 over MFCC+CMVN features and stores 42-dim bottleneck features; SURVEY

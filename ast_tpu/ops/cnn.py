@@ -4,8 +4,8 @@ Equivalent capability to the reference's CNN layer list (reference:
 seq2seq.py:35-60 init, :158-180 forward): NCHW layout where H is time and
 W is the feature axis; the shipped config's first layer collapses the
 13-dim MFCC axis (stride 13) and each layer halves time, for a net 4x time
-downsampling.  Implemented with ``lax.conv_general_dilated`` so XLA maps it
-onto the MXU; BatchNorm keeps running statistics in a separate (non-trained)
+downsampling.  Implemented as im2col matmuls for the shipped config family
+and with ``lax.conv_general_dilated`` otherwise; BatchNorm keeps running statistics in a separate (non-trained)
 state pytree.  Legacy extras carried as config options: per-layer max
 pooling and leaky-relu (reference: enc_dec.py:444-468).
 """
@@ -105,14 +105,12 @@ def _conv_frontend_matmul(params, state, cnn_config, X, train,
     gather + one big (B*T', kh*C_in) @ (kh*C_in, C_out) matmul.
 
     The NCHW `lax.conv` path keeps the collapsed feature axis (13 -> 1)
-    in the lane dimension, so the MXU runs at tiny utilization; as
-    matmuls the lane dims are C_out (128/512).  Windows are built from
-    kh strided SLICES concatenated on the feature axis (a time-gather
-    measured slower than the conv itself on TPU; linear slices win).
+    as a spatial dimension of width 1; as matmuls the output dims are
+    C_out (128/512).  Windows are built from kh strided SLICES
+    concatenated on the feature axis rather than a time-gather.
     Weights stay in the OIHW layout of the checkpoint format; matmuls
     run in ``compute_dtype`` with f32 accumulation, BN/ReLU in f32.
-    Measured fwd+bwd at flagship shapes: 1.57 ms vs 1.84 ms for the
-    NCHW path (incl. ~1.2 ms dispatch floor — compute roughly halves)."""
+    Its speed against the NCHW path on the GPU is not measured."""
     cd = compute_dtype
     h = X  # (B, T, D)
     new_state = []
@@ -161,8 +159,8 @@ def conv_frontend(params, state, cnn_config, X, train,
     """Apply the conv stack.  X: (B, T, D) -> (B, T', C_out), new_state.
 
     Dispatches to the im2col matmul formulation for the shipped config
-    family (see `_conv_frontend_matmul` — ~6x faster on TPU); the
-    general `lax.conv` NCHW path handles everything else, in float32
+    family (see `_conv_frontend_matmul`); the general `lax.conv` NCHW
+    path handles everything else, in float32
     (XLA's transpose-conv gradient rejects mixed bf16/f32 operands)."""
     if _matmul_eligible(cnn_config, X.shape[-1]) \
             and not cnn_config.get("force_nchw", False):

@@ -1,6 +1,6 @@
 """On-device MFCC / log-mel filterbank + CMVN feature extraction.
 
-TPU-native replacement for the reference's offline Kaldi C++ feature chain
+On-device replacement for the reference's offline Kaldi C++ feature chain
 (reference: linking_files/fisher/mfcc.conf — 13-dim MFCC, 8 kHz,
 --use-energy=false; fisher/create_mfccs.sh:33-44 apply-cmvn
 --norm-vars=true per speaker; SURVEY §2.4): the whole chain — framing,
@@ -9,8 +9,8 @@ liftering, CMVN — runs batched on device.
 
 Design: the DFT is expressed as two real matmuls against precomputed
 cos/sin bases, and the mel projection and DCT are matmuls too, so the
-entire extractor is a chain of MXU matmuls + cheap VPU elementwise ops
-that XLA fuses; there is no FFT butterfly, no host round-trip, and the
+entire extractor is a chain of matmuls + cheap elementwise ops that XLA
+fuses; there is no FFT butterfly, no host round-trip, and the
 bases are constants folded at compile time.  Frame extraction is a single
 gather with a static (n_frames, frame_len) index matrix.
 

@@ -1,6 +1,6 @@
 """LSTM cell primitives for scan-based recurrence.
 
-TPU-first formulation of the reference's per-timestep Chainer LSTM calls
+Scan-based formulation of the reference's per-timestep Chainer LSTM calls
 (reference: seq2seq.py:192-203 drives 6 cuDNN LSTM kernels per Python loop
 iteration): here a cell is a pair of packed matmuls — the input projection
 ``x @ wx`` is hoisted *outside* the time scan wherever the full input

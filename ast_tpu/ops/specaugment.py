@@ -6,7 +6,7 @@ the standard regularizer for low-resource speech models of exactly this
 family.  The reference's only input augmentation is host-side random
 frame zeroing (reference: nmt_run.py:478-487 → ``data.zero_input``,
 kept as-is in the dataloader); this module is the beyond-reference,
-TPU-native counterpart: masks are sampled and applied *inside* the
+on-device counterpart: masks are sampled and applied *inside* the
 jitted train step from the same per-batch key stream as every other
 stochastic train op, so augmentation costs zero host time, adds no
 host→device traffic, and is bit-reproducible under resume/multi-step
@@ -15,8 +15,8 @@ dispatch/mesh sharding (the step key is derived in-graph from
 
 All mask geometry is computed with static shapes: per-row widths/starts
 are sampled as (B, 1) integers and turned into masks by iota
-comparisons, so XLA fuses the whole augmentation into a handful of VPU
-ops on the (B, T, D) block — no gather, no dynamic slicing, no
+comparisons, so XLA fuses the whole augmentation into a handful of
+elementwise ops on the (B, T, D) block — no gather, no dynamic slicing, no
 per-mask loop on device (the loop over ``*_masks`` is a static Python
 unroll).
 

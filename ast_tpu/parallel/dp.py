@@ -3,7 +3,7 @@
 A new capability vs. the single-GPU reference (SURVEY §2.5): the train step
 is jitted over the mesh with batches sharded on 'data' and params laid out
 by :mod:`ast_tpu.parallel.mesh`; XLA's SPMD partitioner inserts the
-gradient all-reduce (psum over ICI) and any vocab-axis collectives from
+gradient all-reduce (NCCL on GPUs) and any vocab-axis collectives from
 the sharding annotations alone — no hand-written communication.
 
 Multi-process (DCN) model: every host runs the same program over the same

@@ -2,10 +2,12 @@
 
 The reference is strictly single-GPU (reference: nn.py:50-53 picks a gpuid;
 no distributed backend exists — SURVEY §2.5), so this subsystem is a new
-TPU-native capability, not a port: a ``jax.sharding.Mesh`` with a ``data``
-axis for batch parallelism (gradient all-reduce rides ICI) and an optional
-``model`` axis that shards the vocab-dimension matrices (decoder embedding,
-output projection) tensor-parallel style.
+capability, not a port: a ``jax.sharding.Mesh`` with a ``data`` axis for
+batch parallelism and an optional ``model`` axis that shards the
+vocab-dimension matrices (decoder embedding, output projection)
+tensor-parallel style.  The mesh takes devices in ``jax.devices()``
+order and assumes no topology: GPUs of one host are joined all to all
+by NVLink, and XLA hands the gradient all-reduce to NCCL.
 
 Layout rules:
 - batches: leading (batch) axis over 'data'

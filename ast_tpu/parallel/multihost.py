@@ -7,8 +7,8 @@ is NOT striped per host — each host builds the identical deterministic
 batch stream (the dataloader derives its shuffle/augmentation RNGs from
 (seed, set_key, epoch), and seeds are sha256-stable across processes) and
 ``shard_batch`` extracts the host's local rows of each global batch.
-Gradient all-reduce rides ICI within a slice and DCN across slices,
-inserted by XLA from the mesh shardings; eval outputs are replicated so
+Gradient all-reduce runs over NVLink within a host and the network
+across hosts, inserted by XLA from the mesh shardings; eval outputs are replicated so
 every host holds the full predictions (see :mod:`ast_tpu.parallel.dp`).
 Log/checkpoint writes belong to process 0 (trainer + CLI guards).
 

@@ -5,20 +5,15 @@ research CLI with the full framework loaded (reference: beam.py:45-147,
 nn.py:202-233).  For serving, ast_tpu exports the decode functions as
 self-contained StableHLO artifacts: trained weights baked in as
 constants, one artifact per (batch, frames) shape (static shapes are
-the same TPU-native contract the training buckets use).  An artifact
+the same contract the training buckets use).  An artifact
 deserializes and runs from any JAX process — no model code, no config,
-no checkpoint loading — and can be lowered for several platforms at
-export time.
-
-Exports always take the pure-XLA decode paths (``lax.scan`` /
-``lax.while_loop``): the fused Mosaic kernels are platform-specific
-custom calls that would pin the artifact to one TPU generation.  The
-fused kernels remain the fast path for in-process decoding; the
-artifact trades their speed for portability and zero deploy-time
-dependencies on this package.
+no checkpoint loading — and is lowered for several platforms at export
+time (by default the CPU and CUDA GPUs).  The decode paths are plain XLA
+(``lax.scan`` / ``lax.while_loop``), so the artifact carries no custom
+calls.  Writing and reading the file is ``jax.export``'s versioned
+serialization, which needs the ``flatbuffers`` package.
 """
 
-import copy
 import json
 import os
 
@@ -88,49 +83,13 @@ def dequantize_params(qparams, dtype=jnp.float32):
     return jax.tree.map(deq, qparams, is_leaf=_is_q8)
 
 
-def _portable_mcfg(mcfg):
-    """Model config with every Pallas/Mosaic path forced off, so the
-    exported program is pure StableHLO (no platform-pinned custom
-    calls)."""
-    m = copy.deepcopy(mcfg)
-    rnn = m["rnn_config"]
-    rnn["fused_encoder"] = False
-    rnn["fused_decoder"] = False
-    rnn["fused_infer"] = False
-    rnn.pop("fused_interpret", None)
-    return m
-
-
-def _native_mcfg(mcfg):
-    """Model config with the Mosaic kernel paths forced ON for a
-    TPU-only artifact (``tpu_custom_call`` is on jax.export's
-    guaranteed-stable custom-call list, so the serialized kernels
-    carry the same compatibility promise as plain StableHLO — on TPU).
-    Shape/variant eligibility gates still apply per path; an
-    ineligible model exports its XLA fallback inside the same
-    artifact."""
-    m = copy.deepcopy(mcfg)
-    rnn = m["rnn_config"]
-    rnn["fused_encoder"] = True
-    rnn["fused_decoder"] = True
-    rnn["fused_infer"] = True
-    rnn.pop("fused_interpret", None)
-    return m
-
-
-def _export_mcfg(mcfg, native, platforms):
-    if not native:
-        return _portable_mcfg(mcfg)
-    if list(platforms) != ["tpu"]:
-        raise ValueError("native-kernel artifacts are TPU-only: pass "
-                         f"platforms=['tpu'] (got {list(platforms)})")
-    return _native_mcfg(mcfg)
+# platforms an artifact is lowered for unless the caller names others
+DEFAULT_PLATFORMS = ("cpu", "cuda")
 
 
 def export_greedy(params, state, mcfg, batch, frames, stop_limit,
-                  compute_dtype=jnp.float32, platforms=("cpu", "tpu"),
-                  in_dim=13, quantize=False, q_min_size=4096,
-                  native=False):
+                  compute_dtype=jnp.float32, platforms=DEFAULT_PLATFORMS,
+                  in_dim=13, quantize=False, q_min_size=4096):
     """Export batched greedy decode as ``X (B, T, in_dim) f32 ->
     (preds (B, stop_limit) i32, n_steps i32)`` with the weights baked in.
 
@@ -139,23 +98,18 @@ def export_greedy(params, state, mcfg, batch, frames, stop_limit,
     alternatively pass an already-quantized tree as ``params`` (the CLI
     quantizes once and reuses it across the shape ladder).
 
-    ``native=True`` (TPU-only platforms) bakes the fused Mosaic decode
-    kernels into the artifact instead of the portable XLA loop — the
-    deployed decode then runs at the in-process fused rate.
-
     Returns a ``jax.export.Exported``; ``.serialize()`` it to bytes or
     call it in-process via ``.call(X)``.
     """
     from ast_tpu.models import seq2seq
 
-    pmcfg = _export_mcfg(mcfg, native, platforms)
     if quantize and not _has_q8(params):
         params = quantize_params(params, q_min_size)
     p_or_q, deq = params, _has_q8(params)
 
     def fn(X):
         p = dequantize_params(p_or_q) if deq else p_or_q
-        return seq2seq.predict_greedy(p, state, pmcfg, X,
+        return seq2seq.predict_greedy(p, state, mcfg, X,
                                       stop_limit, compute_dtype)
 
     spec = jax.ShapeDtypeStruct((batch, frames, in_dim), jnp.float32)
@@ -164,9 +118,8 @@ def export_greedy(params, state, mcfg, batch, frames, stop_limit,
 
 
 def export_beam(params, state, mcfg, batch, frames, N, K, stop_limit,
-                compute_dtype=jnp.float32, platforms=("cpu", "tpu"),
-                in_dim=13, quantize=False, q_min_size=4096,
-                native=False):
+                compute_dtype=jnp.float32, platforms=DEFAULT_PLATFORMS,
+                in_dim=13, quantize=False, q_min_size=4096):
     """Export batched beam decode as ``X (B, T, in_dim) f32 ->
     (hyps (B, N, stop_limit+1) i32, scores (B, N) f32,
     lengths (B, N) i32)``.
@@ -177,8 +130,7 @@ def export_beam(params, state, mcfg, batch, frames, N, K, stop_limit,
     """
     from ast_tpu.ops.beam import make_beam_decoder
 
-    pmcfg = _export_mcfg(mcfg, native, platforms)
-    decode = make_beam_decoder(pmcfg, N, K, stop_limit, compute_dtype)
+    decode = make_beam_decoder(mcfg, N, K, stop_limit, compute_dtype)
     if quantize and not _has_q8(params):
         params = quantize_params(params, q_min_size)
     p_or_q, deq = params, _has_q8(params)
@@ -206,10 +158,7 @@ class LoadedArtifact:
     """A deserialized artifact whose ``call`` is jitted ONCE.
 
     A bare ``Exported.call`` re-traces and re-lowers the entire
-    weights-baked-in module on every invocation — measured ~127 ms of
-    host work per call on the flagship (it capped every artifact
-    variant at the same ~1k utts/sec before repeat calls were cached;
-    BASELINE.md round 3).  Wrapping in ``jax.jit`` makes repeat calls a
+    weights-baked-in module on every invocation.  Wrapping in ``jax.jit`` makes repeat calls a
     cached dispatch; per-device executables are cached per committed
     input placement, which is what the serve replica pool relies on.
     """

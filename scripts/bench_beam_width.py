@@ -1,105 +1,57 @@
 #!/usr/bin/env python
-"""Wide-beam hardware benchmark: beam widths 5 / 8 / 16 (BASELINE
-config 4 names "beam.py width 5-16"), fused Mosaic frontier kernel vs
-the XLA while-loop beam, on the flagship model on the real chip.
+"""Wide-beam benchmark: beam widths 5 / 8 / 16 (BASELINE config 4 names
+"beam.py width 5-16") of the XLA while-loop beam decoder on the flagship
+model, in bf16, on JAX's default device.
 
-For each width: the fused chunk the VMEM model picks, throughput of
-both paths, and a token/score exactness cross-check (fused == XLA on
-the same inputs) — the widths above 5 were previously dark.
-
-NOTE on the exactness column: at stop=175 over RANDOM-init weights the
-beam degenerates into hundreds of near-tied scores (every slot within
-1e-3 of every other), where a single bf16 ulp between two correct
-implementations flips the top-k ordering — expect exact=False here and
-use scripts/decode_exactness_ab.py (decisive logits, short stop,
-tie-aware comparison, top-1 asserted identical) as the correctness
-harness; this script's job is throughput.
+For each width: throughput in utterances per second over ``n_iters``
+batches of ``B`` utterances (T=640 frames, stop=175).  Weights are
+random, so the beams are near-tied and the tokens mean nothing; this
+script times decoding, ``tests/test_plain_path.py`` checks its tokens.
 
 Usage: python scripts/bench_beam_width.py [B] [n_iters]
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 
 
-def run_width(B, T, stop, N, K, n_iters, check_exact=True):
+def run_width(B, T, stop, N, K, n_iters):
     import bench
     from ast_tpu.ops import beam as beam_ops
-    from ast_tpu.ops.fused_decoder import round_up
-    from ast_tpu.ops.fused_infer import fused_beam_chunk
 
-    results = {}
-    mcfg_f, params, state = bench._flagship(fused=True)
-    mcfg_x = jax.tree.map(lambda x: x, mcfg_f)
-    mcfg_x["rnn_config"] = dict(mcfg_x["rnn_config"],
-                                fused_decoder=False,
-                                fused_encoder=True)
+    mcfg, params, state = bench._flagship()
     X, _ = bench._batch(B, T, 16)
-
-    rnn = mcfg_f["rnn_config"]
-    Vp = round_up(rnn["dec_vocab_size"], 128)
-    # encoder output length T' after the conv front-end (T/4 here)
-    chunk = fused_beam_chunk(rnn["dec_layers"], B, N,
-                             rnn["hidden_units"],
-                             rnn["embedding_units"],
-                             rnn["attn_units"], T // 4, Vp, 2)
-    results["chunk"] = chunk
-
-    outs = {}
-    for tag, mcfg in [("fused", mcfg_f), ("xla", mcfg_x)]:
-        decode = beam_ops.make_beam_decoder(
-            mcfg, N=N, K=K, stop_limit=stop,
-            compute_dtype=jnp.bfloat16)
-        hyps, scores, lengths = decode(params, state, X)
-        outs[tag] = (np.asarray(hyps), np.asarray(scores),
-                     np.asarray(lengths))
-        t0 = time.perf_counter()
-        for _ in range(n_iters):
-            hyps, scores, lengths = decode(params, state, X)
-        np.asarray(jax.device_get(scores))
-        dt = time.perf_counter() - t0
-        results[tag] = n_iters * B / dt
-        print(f"  N=K={N}: {tag:5s} {results[tag]:8.1f} utts/s "
-              f"({dt / n_iters * 1000:7.1f} ms/batch of {B}"
-              + (f", chunk {chunk}" if tag == "fused" else "")
-              + ")", flush=True)
-
-    if check_exact:
-        (fh, fs, fl), (xh, xs, xl) = outs["fused"], outs["xla"]
-        exact = bool(
-            np.array_equal(fl, xl)
-            and np.allclose(fs, xs, rtol=1e-3, atol=1e-3)
-            and all(np.array_equal(fh[b, n, :fl[b, n]],
-                                   xh[b, n, :xl[b, n]])
-                    for b in range(B) for n in range(N)))
-        results["exact"] = exact
-        print(f"  N=K={N}: fused == xla token-exact: {exact}",
-              flush=True)
-    return results
+    decode = beam_ops.make_beam_decoder(mcfg, N=N, K=K, stop_limit=stop,
+                                        compute_dtype=jnp.bfloat16)
+    jax.block_until_ready(decode(params, state, X))       # compile
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        out = decode(params, state, X)
+    jax.block_until_ready(out)
+    dt = time.perf_counter() - t0
+    ups = n_iters * B / dt
+    print(f"  N=K={N}: {ups:8.1f} utts/s ({dt / n_iters * 1000:7.1f} "
+          f"ms/batch of {B})", flush=True)
+    return ups
 
 
 def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 128
     n_iters = int(sys.argv[2]) if len(sys.argv) > 2 else 5
     T, stop = 640, 175
-    print(f"backend={jax.default_backend()} B={B} T={T} stop={stop}")
-    all_res = {}
-    for N in (5, 8, 16):
-        print(f"width {N}:", flush=True)
-        all_res[N] = run_width(B, T, stop, N, N, n_iters)
+    dev = jax.devices()[0]
+    print(f"device={dev.platform}:{dev.device_kind} B={B} T={T} "
+          f"stop={stop}")
+    rates = {N: run_width(B, T, stop, N, N, n_iters) for N in (5, 8, 16)}
     print("\nsummary (utts/s):")
-    for N, r in all_res.items():
-        ratio = r["fused"] / r["xla"] if r["xla"] else float("nan")
-        print(f"  N=K={N:2d} chunk={r['chunk']:3d} "
-              f"fused={r['fused']:8.1f} xla={r['xla']:8.1f} "
-              f"fused/xla={ratio:.2f} exact={r.get('exact')}")
+    for N, r in rates.items():
+        print(f"  N=K={N:2d} {r:8.1f}")
 
 
 if __name__ == "__main__":

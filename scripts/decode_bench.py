@@ -1,16 +1,25 @@
 #!/usr/bin/env python
 """Decode-path benchmarks: batched greedy and batched beam on the
-flagship model (real chip).  Sync via device_get (see bench.py note)."""
+flagship model (bf16, random weights) on JAX's default device."""
 
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
 import jax
 import jax.numpy as jnp
+
+
+def _rate(fn, B, n_iters):
+    jax.block_until_ready(fn())                    # compile + warm
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        out = fn()
+    jax.block_until_ready(out)
+    dt = time.perf_counter() - t0
+    return n_iters * B / dt, dt / n_iters * 1000
 
 
 def main(B=32, T=640, stop=175, N=5, K=5, n_iters=10):
@@ -18,36 +27,22 @@ def main(B=32, T=640, stop=175, N=5, K=5, n_iters=10):
     from ast_tpu.models import seq2seq
     from ast_tpu.ops import beam as beam_ops
 
-    for fused in [True]:
-        mcfg, params, state = bench._flagship(fused=fused)
-        X, _ = bench._batch(B, T, 16)
+    mcfg, params, state = bench._flagship()
+    X, _ = bench._batch(B, T, 16)
 
-        @jax.jit
-        def greedy(params, state, X):
-            return seq2seq.predict_greedy(
-                params, state, mcfg, X, stop, jnp.bfloat16)[0]
+    @jax.jit
+    def greedy(params, state, X):
+        return seq2seq.predict_greedy(
+            params, state, mcfg, X, stop, jnp.bfloat16)[0]
 
-        out = greedy(params, state, X)
-        np.asarray(jax.device_get(out))
-        t0 = time.perf_counter()
-        for _ in range(n_iters):
-            out = greedy(params, state, X)
-        np.asarray(jax.device_get(out))
-        dt = time.perf_counter() - t0
-        print(f"greedy fused={fused}: {n_iters*B/dt:8.1f} utts/s "
-              f"({dt/n_iters*1000:6.1f} ms/batch of {B})", flush=True)
-
-        decode = beam_ops.make_beam_decoder(
-            mcfg, N=N, K=K, stop_limit=stop, compute_dtype=jnp.bfloat16)
-        hyps, scores, lengths = decode(params, state, X)
-        np.asarray(jax.device_get(scores))
-        t0 = time.perf_counter()
-        for _ in range(n_iters):
-            hyps, scores, lengths = decode(params, state, X)
-        np.asarray(jax.device_get(scores))
-        dt = time.perf_counter() - t0
-        print(f"beam N={N} K={K} fused={fused}: {n_iters*B/dt:8.1f} utts/s "
-              f"({dt/n_iters*1000:6.1f} ms/batch of {B})", flush=True)
+    ups, ms = _rate(lambda: greedy(params, state, X), B, n_iters)
+    print(f"greedy: {ups:8.1f} utts/s ({ms:6.1f} ms/batch of {B})",
+          flush=True)
+    decode = beam_ops.make_beam_decoder(
+        mcfg, N=N, K=K, stop_limit=stop, compute_dtype=jnp.bfloat16)
+    ups, ms = _rate(lambda: decode(params, state, X), B, n_iters)
+    print(f"beam N={N} K={K}: {ups:8.1f} utts/s ({ms:6.1f} ms/batch of "
+          f"{B})", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """HTTP serving throughput under concurrent load: micro-batching A/B.
 
-Measures what ``serve.py --batch-window-ms`` buys on the real chip:
+Measures what ``serve.py --batch-window-ms`` buys on the device:
 exports one flagship-shaped greedy artifact, starts the HTTP server
 twice (window off / window on), and fires the same pool of concurrent
 clients at both.  Without batching every request pays a full
@@ -9,14 +9,14 @@ concurrent requests ride the same call, so sustained throughput should
 approach the artifact's raw batch decode rate.
 
 Usage: ``python scripts/serve_load_bench.py [n_requests] [n_clients]
-[B] [T] [stop] [window_ms] [native]`` (``native=1``: bake the fused
-Mosaic decode kernels into the artifact — TPU backend required).
+[B] [T] [stop] [window_ms]``.
 
 The reference has no serving path at all (decode = the research CLI,
 reference: beam.py:45-147); this measures a new capability.
 """
 
 import json
+import os
 import sys
 import threading
 import time
@@ -24,7 +24,7 @@ import urllib.request
 
 import numpy as np
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _post(url, data,
@@ -68,44 +68,44 @@ def main():
     n_clients = int(sys.argv[2]) if len(sys.argv) > 2 else 64
     B = int(sys.argv[3]) if len(sys.argv) > 3 else 32
     # one bucket width of frames: short telephone utterances keep the
-    # per-request JSON cost (this host has ONE cpu core for client +
-    # server + detok) from masking the device-call saving under test
+    # per-request JSON cost (client, server and detok share the host's
+    # cores) from masking the device-call saving under test
     T = int(sys.argv[4]) if len(sys.argv) > 4 else 80
     stop = int(sys.argv[5]) if len(sys.argv) > 5 else 175
     window_ms = float(sys.argv[6]) if len(sys.argv) > 6 else 30.0
-    native = bool(int(sys.argv[7])) if len(sys.argv) > 7 else False
 
     from __graft_entry__ import FLAGSHIP_MCFG
     from ast_tpu import serving
     from ast_tpu.cli import serve
     from ast_tpu.models import seq2seq
 
-    with open("experiments/es_en_20h/model_cfg.json") as f:
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "experiments", "es_en_20h",
+            "model_cfg.json")) as f:
         mcfg = json.load(f)
     vocab_size = FLAGSHIP_MCFG["rnn_config"]["dec_vocab_size"]
     mcfg["rnn_config"]["dec_vocab_size"] = vocab_size
     params, state = seq2seq.init_model(jax.random.PRNGKey(0), mcfg)
 
     platform = jax.devices()[0].platform
-    out_dir = "/tmp/serve_load_bench"
-    import os
+    platform = "cuda" if platform == "gpu" else platform
+    out_dir = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bench_data", "serve_load_bench")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.time()
     exp = serving.export_greedy(params, state, mcfg, B, T, stop,
                                 compute_dtype=jnp.bfloat16,
-                                platforms=(platform,), native=native)
+                                platforms=(platform,))
     fname = f"greedy_B{B}_T{T}.jaxexp"
     nbytes = serving.save_artifact(exp, os.path.join(out_dir, fname))
     entry = {"file": fname, "kind": "greedy", "batch": B,
              "frames": T, "platforms": [platform], "bytes": nbytes}
-    if native:
-        entry["native"] = True
     serving.write_manifest(
         out_dir, [entry],
         mcfg, stop, "bfloat16",
         i2w={i: f"w{i}" for i in range(vocab_size)}, dec_key="en_w")
-    print(f"exported {fname} ({nbytes:,} bytes, platform={platform}"
-          f"{', native kernels' if native else ''}) "
+    print(f"exported {fname} ({nbytes:,} bytes, platform={platform}) "
           f"in {time.time() - t0:.0f}s", flush=True)
 
     import io

@@ -28,10 +28,9 @@ import threading
 import time
 import urllib.request
 
-sys.path.insert(0, ".")
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "tests")
-sys.path.insert(0, "/root/repo/tests")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests"))
 
 import numpy as np
 
@@ -76,7 +75,9 @@ def main():
     from conftest import make_tiny_experiment
     from ast_tpu.cli import export_model
 
-    root = "/tmp/serve_workers_bench"
+    root = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bench_data", "serve_workers_bench")
     shutil.rmtree(root, ignore_errors=True)
     exp = make_tiny_experiment(root)
     out = export_model.main(

@@ -1,16 +1,17 @@
 #!/usr/bin/env python
-"""Decompose the flagship train step's device time (real chip).
+"""Decompose the flagship train step's device time (JAX's default
+device).
 
 Times jitted sub-programs with interleaved rounds and min-of-rounds:
 full step, loss fwd, fwd+bwd (no opt), opt.update alone, conv
-front-end alone, and the fused encoder/decoder kernels alone.
+front-end alone, the encoder alone, and a trivial dispatch.
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 import jax
@@ -25,7 +26,7 @@ def timeit(fns, n_iters=30, rounds=4):
             t0 = time.perf_counter()
             for _ in range(n_iters):
                 out = f()
-            jax.device_get(jax.tree.leaves(out)[0])
+            jax.block_until_ready(out)
             best[k] = min(best[k],
                           (time.perf_counter() - t0) / n_iters * 1000)
     return best
@@ -37,7 +38,7 @@ def main(B=32, T=640, U=48):
     from ast_tpu.ops.cnn import conv_frontend
     from ast_tpu.train.optimizer import build_optimizer
 
-    mcfg, params, state = bench._flagship(fused=True)
+    mcfg, params, state = bench._flagship()
     X, y = bench._batch(B, T, U)
     cd = jnp.bfloat16
     opt_cfg = {"type": 0, "lr": 1e-3, "l2": 1e-4, "grad_clip": 2,

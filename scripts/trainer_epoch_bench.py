@@ -13,8 +13,9 @@ Usage:
   python scripts/trainer_epoch_bench.py [--batch 32] [--g 4]
       [--epochs 3] [--root DIR] [--pack] [--keep]
 
-Writes/loads the corpus under --root (default /tmp/trainer_epoch_bench;
-~350 MB of features, reused across runs).  Prints per-epoch wall time
+Writes/loads the corpus under --root (default
+<checkout>/.bench_data/trainer_epoch_bench; ~350 MB of features, reused
+across runs).  Prints per-epoch wall time
 and real-utts/sec through NN.train_epoch, then the bench.py epoch-model
 number from the same process for reconciliation.
 """
@@ -26,20 +27,26 @@ import pickle
 import sys
 import time
 
-sys.path.insert(0, ".")
-sys.path.insert(0, "/root/repo")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import numpy as np
 
 VOCAB_WORDS = 1094  # + 4 specials = the flagship's 1098
+DEFAULT_ROOT = os.path.join(REPO, ".bench_data", "trainer_epoch_bench")
 
 
-def build_corpus(root, log=print, scale=1):
+def build_corpus(root, log=print, scale=1, buckets=None,
+                 utts_per_bucket=None):
     """Synthetic corpus matching bench.EPOCH_BUCKETS exactly.
 
     ``scale``: multiply every bucket's utterance count (scale=8 ==
     the 160h corpus shape — fisher_20h.info x8, ~138k utts / ~2.9 GB
-    of features)."""
+    of features).  ``buckets``: keep only these bucket ids;
+    ``utts_per_bucket``: replace each kept bucket's count (a cut-down
+    corpus with the same per-bucket shapes).  Target words follow a
+    Zipf(1) law over the vocabulary, as text does, so a model can learn
+    from the first steps.  Features and targets come from a fixed seed."""
     import bench
 
     data = os.path.join(root, "data")
@@ -61,21 +68,31 @@ def build_corpus(root, log=print, scale=1):
     map_dict = {"syn_train": {}, "syn_dev": {}}
     info = {"syn_train": {}, "syn_dev": {}}
 
-    regen = not os.path.exists(done_marker)
+    # the marker records which corpus the features on disk belong to
+    # (the trailing 2 is the generator's version: frames now stay below
+    # each bucket's padded length T)
+    signature = json.dumps([scale, buckets, utts_per_bucket, 2])
+    regen = not (os.path.exists(done_marker)
+                 and open(done_marker).read() == signature)
+    zipf = 1.0 / np.arange(1, VOCAB_WORDS + 1)
+    zipf /= zipf.sum()
     t0 = time.time()
     n_total = 0
     for b, n, T, U in bench.EPOCH_BUCKETS:
-        n *= int(scale)
-        lo = b * 80 + 1
-        hi = T  # bucket upper edge == the bench's per-bucket frame count
+        if buckets is not None and b not in buckets:
+            continue
+        n = utts_per_bucket or n * int(scale)
+        # frames in (b*80, T): duration bucket b holds frames
+        # [b*80, (b+1)*80) and pads them to T = (b+1)*80
+        lo, hi = b * 80 + 1, T - 1
         for i in range(n):
             utt = f"b{b:02d}_u{i:05d}"
             frames = int(rng.randint(max(lo, hi - 79), hi + 1))
             # targets: U includes GO/EOS + pad-to-multiple headroom; use
             # U-8..U-2 real tokens so per-bucket target_len lands at U
             n_words = int(rng.randint(max(2, U - 8), U - 1))
-            toks = [words[rng.randint(VOCAB_WORDS)]
-                    for _ in range(n_words)]
+            toks = [words[i] for i in rng.choice(VOCAB_WORDS, n_words,
+                                                 p=zipf)]
             map_dict["syn_train"][utt] = {"en_w": toks}
             info["syn_train"][utt] = {"sp": frames, "en_w": n_words}
             if regen:
@@ -96,7 +113,8 @@ def build_corpus(root, log=print, scale=1):
     if regen:
         log(f"generated {n_total} feature files in "
             f"{time.time() - t0:.0f}s")
-        open(done_marker, "w").write("ok")
+        with open(done_marker, "w") as f:
+            f.write(signature)
 
     for name, obj in [("syn.map", map_dict), ("syn.vocab", vocab),
                       ("syn.info", info)]:
@@ -117,10 +135,14 @@ def build_corpus(root, log=print, scale=1):
 
 def write_configs(root, batch, g, transfer_dtype="float32",
                   prefetch_workers=2, hbm_cache=False,
-                  hbm_cache_dtype="float32"):
+                  hbm_cache_dtype="float32", mcfg=None, exp_name="exp"):
+    """Write ``train_cfg.json`` + ``model_cfg.json`` for the corpus under
+    ``root`` into ``root/<exp_name>``; ``mcfg`` defaults to the flagship
+    model."""
     from __graft_entry__ import FLAGSHIP_MCFG
 
-    exp = os.path.join(root, "exp")
+    exp = os.path.join(root, exp_name)
+    os.makedirs(exp, exist_ok=True)
     data = os.path.join(root, "data")
     train_cfg = {
         "seed": "epoch-bench",
@@ -151,7 +173,7 @@ def write_configs(root, batch, g, transfer_dtype="float32",
                       "freeze": []},
         "batch_size": batch,
     }
-    mcfg = json.loads(json.dumps(FLAGSHIP_MCFG))
+    mcfg = json.loads(json.dumps(mcfg or FLAGSHIP_MCFG))
     mcfg["rnn_config"].pop("dec_vocab_size", None)
     with open(os.path.join(exp, "train_cfg.json"), "w") as f:
         json.dump(train_cfg, f, indent=1)
@@ -165,7 +187,7 @@ def main():
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--g", type=int, default=4)
     ap.add_argument("--epochs", type=int, default=3)
-    ap.add_argument("--root", default="/tmp/trainer_epoch_bench")
+    ap.add_argument("--root", default=DEFAULT_ROOT)
     ap.add_argument("--pack", action="store_true",
                     help="serve features from an mmap pack instead of "
                          "per-utt .npy files")
@@ -230,9 +252,7 @@ def main():
 
     if not args.skip_model:
         import bench
-        box = {}
-        dt, ups = bench.bench_epoch(B=args.batch, G=args.g,
-                                    result_box=box)
+        dt, ups, _ = bench.bench_epoch(B=args.batch, G=args.g)
         print(f"bench.py epoch model:     {ups:.1f} real utts/sec "
               f"({dt:.2f}s/epoch)")
         print(f"harness/model ratio:      {best / ups:.3f}")

@@ -18,11 +18,11 @@ Usage: python scripts/trainer_epoch_isolate.py
 (expects the corpus from scripts/trainer_epoch_bench.py)
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
@@ -32,7 +32,9 @@ import jax
 def main():
     from ast_tpu.train.trainer import NN, _group_stream
 
-    nn = NN("/tmp/trainer_epoch_bench/exp")
+    nn = NN(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bench_data", "trainer_epoch_bench", "exp"))
     n_utts = 17306
     set_key = "syn_train"
     tcfg = nn.cfg.train

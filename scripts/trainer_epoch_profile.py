@@ -17,17 +17,19 @@ Usage: python scripts/trainer_epoch_profile.py [--epochs 3]
 """
 
 import argparse
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--epochs", type=int, default=3)
-    ap.add_argument("--root", default="/tmp/trainer_epoch_bench")
+    ap.add_argument("--root", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bench_data", "trainer_epoch_bench"))
     args = ap.parse_args()
 
     from ast_tpu.train import trainer as trainer_mod

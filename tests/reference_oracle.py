@@ -25,6 +25,13 @@ def _sigmoid(x):
     return 1.0 / (1.0 + np.exp(-x))
 
 
+def top2_gap(logits):
+    """(B,) gap between each row's largest and second-largest logit: how
+    far the row's argmax is from a tie."""
+    top2 = np.sort(logits, axis=1)[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
 class RefLSTM:
     """Stateful LSTM link (Chainer L.LSTM shape: keeps h, c across calls)."""
 
@@ -259,8 +266,10 @@ class ReferenceOracle:
 
     # -- loss (reference: seq2seq.py:399-473) -------------------------------
 
-    def forward_loss(self, X, y, teach_ratio, train=False, rev_quirk=False):
-        """teach_ratio must be 1.0 or 0.0 (deterministic coin)."""
+    def forward_loss(self, X, y, teach_ratio, train=False, rev_quirk=False,
+                     gaps=None):
+        """teach_ratio must be 1.0 or 0.0 (deterministic coin).  ``gaps``:
+        a list that receives each step's (B,) top-2 logit gap."""
         assert teach_ratio in (1.0, 0.0)
         B = X.shape[0]
         self.encode(X, train, rev_quirk)
@@ -277,6 +286,8 @@ class ReferenceOracle:
             if forced or teach_ratio == 1.0:
                 decoder_input = curr_word
             logits, ht, _ = self.decode_step(decoder_input, ht)
+            if gaps is not None:
+                gaps.append(top2_gap(logits))
             decoder_input = np.argmax(logits, axis=1)
             # softmax CE, class_weight zeroing PAD, normalize=True (mean
             # over the batch)
@@ -290,7 +301,8 @@ class ReferenceOracle:
     # -- greedy predict (reference: seq2seq.py:475-527) ---------------------
 
     def predict(self, X, start_token, end_token, stop_limit,
-                rev_quirk=False):
+                rev_quirk=False, gaps=None):
+        """Greedy decode; ``gaps`` as in ``forward_loss``."""
         B = X.shape[0]
         self.encode(X, False, rev_quirk)
         self.init_decoder_state()
@@ -300,6 +312,8 @@ class ReferenceOracle:
         sents = []
         for _ in range(stop_limit):
             logits, ht, _ = self.decode_step(curr, ht)
+            if gaps is not None:
+                gaps.append(top2_gap(logits))
             pred = np.argmax(logits, axis=1)
             sents.append(pred)
             curr = pred

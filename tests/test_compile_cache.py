@@ -2,8 +2,9 @@
 
 The reference recompiles everything per process (Chainer define-by-run
 has no cross-process compile artifact at all); here re-runs / resumes /
-post-training decode passes reload compiled executables from
-``extras.compile_cache``.  These tests pin the resolution rules
+post-training decode passes reload compiled executables.  These tests pin
+the resolution order (``JAX_COMPILATION_CACHE_DIR``, then
+``extras.compile_cache``, then the fixed ``<checkout>/.jax_cache``)
 in-process and the actual cross-process reload in subprocesses.
 """
 
@@ -20,36 +21,62 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(autouse=True)
 def _reset_module_state(monkeypatch):
-    monkeypatch.setattr(cc, "_enabled_dir", None)
-    monkeypatch.delenv("AST_TPU_COMPILE_CACHE", raising=False)
-    yield
-    # do not leave the session-wide jax config pointing into a tmpdir
     import jax
-    jax.config.update("jax_compilation_cache_dir", None)
+
+    monkeypatch.setattr(cc, "_enabled_dir", None)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    yield
+    # leave the session-wide jax config as it was
+    jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_disabled_by_setting(tmp_path):
-    # opt-in: the no-argument call (and explicit disables) never touch jax
-    assert cc.enable_compile_cache() is None
+    # explicit disables never touch jax
     assert cc.enable_compile_cache(False) is None
     assert cc.enable_compile_cache("off") is None
     assert cc.enable_compile_cache("") is None
 
 
-def test_env_disable_wins_over_config(tmp_path, monkeypatch):
-    monkeypatch.setenv("AST_TPU_COMPILE_CACHE", "0")
-    assert cc.enable_compile_cache(str(tmp_path / "cfg")) is None
+@pytest.mark.parametrize("env,setting,want", [
+    ("ENV", "CFG", "ENV"),          # JAX's own variable wins
+    ("ENV", False, "ENV"),          # ... even over a config disable
+    (None, "CFG", "CFG"),           # then extras.compile_cache
+    (None, False, None),
+    (None, "off", None),
+    (None, None, "DEFAULT"),        # then on by default, in the checkout
+    (None, True, "DEFAULT"),
+])
+def test_resolution_order(tmp_path, monkeypatch, env, setting, want):
+    names = {"ENV": str(tmp_path / "env"), "CFG": str(tmp_path / "cfg"),
+             "DEFAULT": str(tmp_path / "default"), None: None}
+    monkeypatch.setattr(cc, "DEFAULT_DIR", names["DEFAULT"])
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", names[env])
+    assert cc.enable_compile_cache(names.get(setting, setting)) == \
+        names[want]
 
 
-def test_env_path_wins_over_config(tmp_path, monkeypatch):
-    env_dir = tmp_path / "envdir"
-    monkeypatch.setenv("AST_TPU_COMPILE_CACHE", str(env_dir))
-    got = cc.enable_compile_cache(str(tmp_path / "cfgdir"))
-    assert got == str(env_dir)
-    assert env_dir.is_dir()
-
+def test_jax_env_dir_is_left_to_jax(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set the module reports that
+    directory and sets no other path in JAX's config."""
     import jax
-    assert jax.config.jax_compilation_cache_dir == str(env_dir)
+
+    env_dir = str(tmp_path / "envdir")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    before = jax.config.jax_compilation_cache_dir
+    assert cc.enable_compile_cache(str(tmp_path / "cfgdir")) == env_dir
+    assert jax.config.jax_compilation_cache_dir == before
+    assert not (tmp_path / "cfgdir").exists()
+
+
+def test_config_path_sets_jax(tmp_path):
+    import jax
+
+    d = str(tmp_path / "cfgdir")
+    assert cc.enable_compile_cache(d) == d
+    assert os.path.isdir(d)
+    assert jax.config.jax_compilation_cache_dir == d
 
 
 def test_explicit_path_and_idempotence(tmp_path):
@@ -59,18 +86,21 @@ def test_explicit_path_and_idempotence(tmp_path):
     assert cc.enable_compile_cache(str(tmp_path / "two")) == d1
 
 
-def test_default_path_under_home(monkeypatch, tmp_path):
-    monkeypatch.setenv("HOME", str(tmp_path))
-    got = cc.enable_compile_cache(True)
-    assert got == str(tmp_path / ".cache" / "ast_tpu" / "xla")
-    assert os.path.isdir(got)
+def test_default_path_is_fixed_in_checkout():
+    """The default is <checkout>/.jax_cache — never a temporary name, a
+    pid or a time, which would miss on every later run — and git
+    ignores it."""
+    assert cc.DEFAULT_DIR == os.path.join(REPO, ".jax_cache")
+    assert cc.resolve_cache_dir() == cc.resolve_cache_dir(None) == \
+        cc.DEFAULT_DIR
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
 
 
 _CHILD = r"""
 import logging, sys
 logging.basicConfig(level=logging.DEBUG)
 import jax
-jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
 from ast_tpu.utils.compile_cache import enable_compile_cache
 assert enable_compile_cache() == {cache!r}
@@ -81,14 +111,14 @@ print("RESULT", float(f(jnp.ones((32, 32)))))
 
 
 def test_cross_process_cache_hit(tmp_path):
-    """Second process reloads the first process's compiled executable:
-    the persistent-cache 'hit' log line appears for the jitted program
-    and the numerical result is identical."""
+    """Second process reloads the first process's compiled executable
+    from JAX_COMPILATION_CACHE_DIR: the persistent-cache 'hit' log line
+    appears for the jitted program and the numerical result is
+    identical."""
     cache = str(tmp_path / "xla")
-    env = dict(os.environ,
-               AST_TPU_COMPILE_CACHE=cache,
-               AST_TPU_COMPILE_CACHE_MIN_S="0")
-    env.pop("JAX_PLATFORMS", None)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=cache,
+               JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0")
     script = _CHILD.format(repo=REPO, cache=cache)
 
     runs = []

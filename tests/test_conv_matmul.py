@@ -1,8 +1,8 @@
 """im2col matmul conv front-end == NCHW lax.conv path.
 
 The shipped conv family (feature axis collapsed in layer 0, 1-D over
-time after) is dispatched to window-gather + matmul for MXU-friendly
-lane dims; these tests pin numerical equivalence with the general
+time after) is dispatched to window-gather + matmul with C_out as the
+output dim; these tests pin numerical equivalence with the general
 `lax.conv` path (values, BN running stats, gradients, pooling/leaky
 variants) and the eligibility gate.
 """

@@ -32,6 +32,24 @@ def test_config_loads_and_injects(tiny_exp):
     assert cfg.train["optimizer"]["lr_scale"] == 1
 
 
+@pytest.mark.parametrize("key", ["fused_encoder", "fused_decoder",
+                                 "fused_infer", "fused_interpret",
+                                 "fused_tokens_per_step"])
+def test_config_rejects_removed_kernel_keys(tiny_exp, key):
+    """A model config that still selects a removed kernel fails at load
+    and names the key, instead of silently running another path."""
+    import json
+
+    path = os.path.join(tiny_exp, "model_cfg.json")
+    with open(path) as f:
+        mcfg = json.load(f)
+    mcfg["rnn_config"][key] = False
+    with open(path, "w") as f:
+        json.dump(mcfg, f)
+    with pytest.raises(ValueError, match=key):
+        Config(tiny_exp)
+
+
 def test_bucket_formula():
     cat = {"a": {"sp": 0}, "b": {"sp": 79}, "c": {"sp": 80},
            "d": {"sp": 9999}}

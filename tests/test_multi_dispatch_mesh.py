@@ -78,8 +78,8 @@ def test_mesh_multi_step_matches_single_device(tmp_path):
 
 def test_tail_shrink_keeps_local_rows_fused_aligned(tmp_path):
     """tail_shrink must be 8 x data shards (not lcm): each device's
-    LOCAL rows of a shrunken tail batch must stay 8-aligned or the
-    fused Pallas kernels silently fall back to the scan path."""
+    LOCAL rows of a shrunken tail batch stay 8-aligned, which fixes the
+    set of tail batch shapes a config compiles."""
     exp = make_tiny_experiment(str(tmp_path / "m"), n_train=16, n_dev=4,
                                batch_size=4)
     _pin_parallel(exp, 4)

@@ -11,6 +11,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 
 import jax
 
@@ -40,15 +41,13 @@ def test_greedy_export_roundtrip(tmp_path):
     loaded = serving.load_artifact(path)
     preds, n_steps = loaded.call(X)
     ref_preds, ref_steps = seq2seq.predict_greedy(
-        params, state, serving._portable_mcfg(mcfg), X, stop)
+        params, state, mcfg, X, stop)
     np.testing.assert_array_equal(np.asarray(preds),
                                   np.asarray(ref_preds))
     assert int(n_steps) == int(ref_steps)
 
-    # repeat calls must hit the jit cache, not re-trace the whole
-    # weights-baked-in module (~127 ms/call of host work on the
-    # flagship — it capped every artifact variant at ~1k utts/sec
-    # before LoadedArtifact; BASELINE.md round 3)
+    # repeat calls must hit the jit cache, not re-trace and re-lower the
+    # whole weights-baked-in module on every call
     preds2, _ = loaded.call(X)
     np.testing.assert_array_equal(np.asarray(preds2), np.asarray(preds))
     assert isinstance(loaded, serving.LoadedArtifact)
@@ -69,7 +68,7 @@ def test_beam_export_roundtrip(tmp_path):
     serving.save_artifact(exp, path)
 
     hyps, scores, lengths = serving.load_artifact(path).call(X)
-    decode = make_beam_decoder(serving._portable_mcfg(mcfg), N, K, stop)
+    decode = make_beam_decoder(mcfg, N, K, stop)
     ref_hyps, ref_scores, ref_lengths = decode(params, state, X)
     np.testing.assert_array_equal(np.asarray(hyps), np.asarray(ref_hyps))
     np.testing.assert_allclose(np.asarray(scores),
@@ -158,7 +157,7 @@ def test_quantize_params_error_bound_and_roundtrip(tmp_path):
     qbytes = serving.save_artifact(exp, path)
     preds, _ = serving.load_artifact(path).call(X)
     ref_preds, _ = seq2seq.predict_greedy(
-        deq, state, serving._portable_mcfg(mcfg), X, stop)
+        deq, state, mcfg, X, stop)
     np.testing.assert_array_equal(np.asarray(preds), np.asarray(ref_preds))
 
     # the int8 constants make the artifact materially smaller.  Assert
@@ -214,7 +213,7 @@ def test_quantized_beam_export_roundtrip(tmp_path):
     hyps, scores, lengths = serving.load_artifact(path).call(X)
 
     deq = dequantize_params(quantize_params(params, min_size=64))
-    decode = make_beam_decoder(serving._portable_mcfg(mcfg), N, K, stop)
+    decode = make_beam_decoder(mcfg, N, K, stop)
     ref_hyps, ref_scores, ref_lengths = decode(deq, state, X)
     np.testing.assert_array_equal(np.asarray(hyps), np.asarray(ref_hyps))
     np.testing.assert_allclose(np.asarray(scores),
@@ -223,60 +222,74 @@ def test_quantized_beam_export_roundtrip(tmp_path):
                                   np.asarray(ref_lengths))
 
 
-ALIGNED_MCFG = {
-    # smallest model that passes the REAL fused-kernel alignment gates
-    # (H/E/A % 128, Vp -> 128): native export must lower the Mosaic
-    # kernels, not the XLA fallback
-    "dropout": {"embed": 0.0, "rnn": 0.0, "out": 0},
-    "rnn_config": {
-        "bi_rnn": True, "enc_layers": 1, "dec_layers": 1,
-        "hidden_units": 128, "embedding_units": 128, "attn_units": 128,
-        "n_attn": 1, "feed_attn": True, "ln": False,
-        "dec_vocab_size": 100,
-    },
-    "cnn_config": {
-        "bn": True,
-        "cnn_layers": [
-            {"in_channels": None, "out_channels": 64, "ksize": [3, 13],
-             "stride": [2, 13], "pad": [1, 0]},
-            {"in_channels": None, "out_channels": 128, "ksize": [3, 1],
-             "stride": [2, 1], "pad": [1, 0]},
-        ],
-    },
-}
+@pytest.mark.parametrize("kind", ["greedy", "beam", "greedy_q8"])
+def test_cuda_export_runs_its_cpu_lowering(tmp_path, kind):
+    """Artifacts lowered for the default ("cpu", "cuda") platforms: the
+    CUDA lowering needs no GPU at export time, the serialized artifact
+    keeps both platforms, and its CPU lowering reproduces the in-process
+    decode."""
+    from ast_tpu.ops.beam import make_beam_decoder
+    from ast_tpu.serving import dequantize_params, quantize_params
+
+    mcfg = _mcfg()
+    params, state = seq2seq.init_model(jax.random.PRNGKey(7), mcfg)
+    B, T, stop = 2, 40, 6
+    X = np.random.RandomState(8).randn(B, T, 13).astype(np.float32)
+    if kind == "beam":
+        exp = serving.export_beam(params, state, mcfg, B, T, 2, 2, stop)
+        want = make_beam_decoder(mcfg, 2, 2, stop)(params, state, X)[0]
+    else:
+        q = kind.endswith("q8")
+        exp = serving.export_greedy(params, state, mcfg, B, T, stop,
+                                    quantize=q, q_min_size=64)
+        ref_params = (dequantize_params(quantize_params(params, 64))
+                      if q else params)
+        want = seq2seq.predict_greedy(ref_params, state, mcfg, X, stop)[0]
+    assert exp.platforms == ("cpu", "cuda")
+    path = str(tmp_path / f"{kind}.jaxexp")
+    serving.save_artifact(exp, path)
+    loaded = serving.load_artifact(path)
+    assert loaded.exported.platforms == ("cpu", "cuda")
+    got = loaded.call(X)[0]
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-def test_native_kernel_export_bakes_mosaic_kernels():
-    """--native-kernels artifacts: TPU-only platform set, the fused
-    Mosaic decoders actually lowered (tpu_custom_call in the module —
-    jax.export's guaranteed-stable list), serialize/deserialize
-    roundtrip, and a portability-violating platform set is rejected.
-    Execution is measured on the real chip (scripts/serving_bench.py
-    --native; BASELINE.md)."""
-    import pytest
-    import jax.numpy as jnp
-    from jax import export as jax_export
+def test_default_platforms_are_cpu_and_cuda():
+    import inspect
 
-    mcfg = copy.deepcopy(ALIGNED_MCFG)
-    params, state = seq2seq.init_model(jax.random.PRNGKey(0), mcfg)
+    assert serving.DEFAULT_PLATFORMS == ("cpu", "cuda")
+    for fn in (serving.export_greedy, serving.export_beam):
+        assert inspect.signature(fn).parameters["platforms"].default == \
+            ("cpu", "cuda")
 
-    exp = serving.export_greedy(params, state, mcfg, 8, 32, 6,
-                                jnp.bfloat16, ["tpu"], native=True)
-    assert exp.platforms == ("tpu",)
-    assert "tpu_custom_call" in exp.mlir_module()
 
-    bexp = serving.export_beam(params, state, mcfg, 8, 32, 2, 2, 6,
-                               jnp.bfloat16, ["tpu"], native=True)
-    assert bexp.platforms == ("tpu",)
-    assert "tpu_custom_call" in bexp.mlir_module()
-    again = jax_export.deserialize(bytearray(bexp.serialize()))
-    assert again.platforms == ("tpu",)
+def test_export_cli_default_platforms(tmp_path):
+    """No --platforms: the manifest and the artifact carry cpu + cuda."""
+    from ast_tpu.cli import export_model
 
-    # the portable export of the same model carries NO custom calls
-    port = serving.export_greedy(params, state, mcfg, 8, 32, 6,
-                                 jnp.bfloat16, ["cpu", "tpu"])
-    assert "tpu_custom_call" not in port.mlir_module()
+    exp_dir = make_tiny_experiment(str(tmp_path))
+    out = export_model.main(["-m", exp_dir, "--batch", "1", "--frames",
+                             "40", "--dtype", "float32"])
+    with open(os.path.join(out, "manifest.json")) as f:
+        entry = json.load(f)["entries"][0]
+    assert entry["platforms"] == ["cpu", "cuda"]
+    loaded = serving.load_artifact(os.path.join(out, entry["file"]))
+    assert loaded.exported.platforms == ("cpu", "cuda")
 
-    with pytest.raises(ValueError, match="TPU-only"):
-        serving.export_greedy(params, state, mcfg, 8, 32, 6,
-                              jnp.bfloat16, ["cpu", "tpu"], native=True)
+
+@pytest.mark.parametrize("platforms", [None, "cuda", "gpu,cpu"])
+def test_serve_workers_refused_unless_cpu(monkeypatch, capsys, platforms):
+    """--workers N > 1 starts one process per worker; only one process
+    can use a GPU, so it is refused (before any device is opened) unless
+    JAX_PLATFORMS=cpu, and the error points to --replicas."""
+    from ast_tpu.cli import serve
+
+    if platforms is None:
+        monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    else:
+        monkeypatch.setenv("JAX_PLATFORMS", platforms)
+    with pytest.raises(SystemExit) as e:
+        serve.main(["-d", "unused", "--port", "8123", "--workers", "2"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "--replicas" in err and "JAX_PLATFORMS=cpu" in err
